@@ -1,6 +1,6 @@
 """Physical constants and unit handling for NMR spin relaxation.
 
-TPU-native rebuild of the constants embedded in the reference SpinRelax
+Accelerator-native rebuild of the constants embedded in the reference SpinRelax
 (``spectral_densities.py:23-249``): gyromagnetic ratios, default CSA values,
 time/distance unit factors, and the dipole-dipole / CSA interaction
 prefactors.  Everything here is plain Python/immutable data so it can be

@@ -1,6 +1,6 @@
 """Batched quaternion algebra as pure JAX functions.
 
-TPU-native replacement for the reference's ``transforms3d_supplement.py``
+Accelerator-native replacement for the reference's ``transforms3d_supplement.py``
 (plus the parts of the external ``transforms3d`` package it relies on).
 All functions operate on arrays whose **last axis** holds the quaternion
 (w, x, y, z) or vector (x, y, z) components, broadcast over any number of

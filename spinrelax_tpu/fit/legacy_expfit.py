@@ -9,7 +9,7 @@ contract (chi, params, perr, ymodel) including the _bound_check ->
 9999.99 sentinel and calc_chi's division by dy (sic, not dy^2,
 fitting_Ct_functions.py:547-551).
 
-TPU-first shape: one vectorised model evaluator per family (fixed-width
+Accelerator-first shape: one vectorised model evaluator per family (fixed-width
 parameter vectors, vmappable), fit by the shared batched LM
 (:mod:`spinrelax_tpu.fit.lm`) instead of sequential scipy curve_fit.
 ``do_expstyle_fit`` / ``do_lsstyle_fit`` accept a single curve or a

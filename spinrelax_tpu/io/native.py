@@ -1,13 +1,18 @@
-"""ctypes bindings to the native fast-IO library (libfastio.so).
+"""ctypes bindings to the native fast-IO and XTC codec libraries.
 
-Compiled on demand from spinrelax_tpu/native/fastio.cpp (plain C ABI, no
-pybind11).  Falls back silently to None when no compiler is available;
-callers degrade to the numpy text parsers.
+Each library is compiled at first use from its committed source
+(spinrelax_tpu/native/<name>.cpp, plain C ABI, no pybind11) into
+spinrelax_tpu/native/build/lib<name>-<key>.so, where <key> hashes the
+source bytes and the compiler command.  Only the library whose key
+matches the source in the tree is ever loaded, so a stale or foreign
+build cannot be picked up.  When no compiler is available the loaders
+return None and callers degrade to the numpy text parsers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional
@@ -15,30 +20,54 @@ from typing import Optional
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libfastio.so")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+CXX_COMMAND = ("g++", "-O3", "-pthread", "-shared", "-fPIC")
+_BUILT: dict = {}  # library name -> {"path", "built_now"} this process
 
 
 def _build_lib(src: str, out: str):
-    """Compile ``src`` to ``out`` if stale.  The compile targets a
-    pid-suffixed temp path + atomic os.replace: two concurrent processes
-    (parallel CLI runs, pytest workers) may both see a stale .so, and one
-    must never dlopen the other's half-written output."""
-    if os.path.exists(out) and (
-        not os.path.exists(src)
-        or os.path.getmtime(out) >= os.path.getmtime(src)
-    ):
-        return
+    """Compile ``src`` to ``out``.  The compile targets a pid-suffixed
+    temp path + atomic os.replace: two concurrent processes (parallel CLI
+    runs, pytest workers) may both build, and one must never dlopen the
+    other's half-written output."""
     tmp = f"{out}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-pthread", "-shared", "-fPIC", src, "-o", tmp],
-            check=True,
-            capture_output=True,
+            [*CXX_COMMAND, src, "-o", tmp], check=True, capture_output=True,
         )
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def library_path(name: str) -> str:
+    """Keyed build path of native/<name>.cpp (see module docstring)."""
+    with open(os.path.join(_NATIVE_DIR, name + ".cpp"), "rb") as fp:
+        h = hashlib.sha256(" ".join(CXX_COMMAND).encode() + b"\0" + fp.read())
+    return os.path.join(_BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def ensure_built(name: str) -> str:
+    """Path of the library built from the committed native/<name>.cpp,
+    compiling it first if this source has no build yet."""
+    out = library_path(name)
+    built_now = not os.path.exists(out)
+    if built_now:
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        _build_lib(os.path.join(_NATIVE_DIR, name + ".cpp"), out)
+    _BUILT[name] = {"path": os.path.relpath(out, _NATIVE_DIR),
+                    "built_now": built_now}
+    return out
+
+
+def library_report() -> dict:
+    """Which native libraries this process loaded, and whether it had
+    to compile them."""
+    return {name: dict(info, loaded=(name == "fastio" and _lib is not None)
+                       or (name == "xtc" and _xtc_lib is not None))
+            for name, info in _BUILT.items()}
+
 
 _lib = None
 _tried = False
@@ -49,12 +78,8 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    src = os.path.join(_NATIVE_DIR, "fastio.cpp")
     try:
-        # A deployment may ship only the built .so (the .cpp is a build
-        # input): rebuild ONLY when the source exists and is newer.
-        _build_lib(src, _LIB_PATH)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(ensure_built("fastio"))
         lib.fastio_table_dims.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p,
             ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
@@ -190,7 +215,6 @@ def count_fields_headers(fn: str) -> Optional[int]:
 # XTC codec bindings (spinrelax_tpu/native/xtc.cpp)
 # ---------------------------------------------------------------------------
 
-_XTC_PATH = os.path.join(_NATIVE_DIR, "libxtc.so")
 _xtc_lib = None
 _xtc_tried = False
 
@@ -200,10 +224,8 @@ def _load_xtc():
     if _xtc_tried:
         return _xtc_lib
     _xtc_tried = True
-    src = os.path.join(_NATIVE_DIR, "xtc.cpp")
     try:
-        _build_lib(src, _XTC_PATH)
-        lib = ctypes.CDLL(_XTC_PATH)
+        lib = ctypes.CDLL(ensure_built("xtc"))
         lib.xtc_info.argtypes = [
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_int)
         ]
@@ -230,52 +252,35 @@ def _load_xtc():
         lib.xtc_append.restype = ctypes.c_int
         lib.xtc_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
         lib.xtc_open.restype = ctypes.c_void_p
-        lib.xtc_next.argtypes = [
+        lib.xtc_next_mt.argtypes = [
             ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int,
         ]
-        lib.xtc_next.restype = ctypes.c_long
-        try:
-            lib.xtc_next_mt.argtypes = [
-                ctypes.c_void_p,
-                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int,
-            ]
-            lib.xtc_next_mt.restype = ctypes.c_long
-            lib._has_mt = True
-        except AttributeError:
-            # A prebuilt libxtc.so from before the threaded reader (the
-            # "ship only the .so" deployment _build_lib supports): keep
-            # the whole codec usable, just decode sequentially.
-            lib._has_mt = False
+        lib.xtc_next_mt.restype = ctypes.c_long
         lib.xtc_close.argtypes = [ctypes.c_void_p]
         lib.xtc_close.restype = None
-        try:
-            lib.xtc_next_obs.argtypes = [
-                ctypes.c_void_p,
-                ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
-                ctypes.c_long,
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.c_long, ctypes.c_int,
-            ]
-            lib.xtc_next_obs.restype = ctypes.c_long
-            lib.xtc_reduce_obs.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
-                ctypes.c_long,
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_double),
-                ctypes.c_int,
-            ]
-            lib.xtc_reduce_obs.restype = None
-            lib._has_obs = True
-        except AttributeError:
-            lib._has_obs = False  # prebuilt .so predating the fused ingest
+        lib.xtc_next_obs.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+            ctypes.c_long,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_long, ctypes.c_int,
+        ]
+        lib.xtc_next_obs.restype = ctypes.c_long
+        lib.xtc_reduce_obs.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+            ctypes.c_long,
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int,
+        ]
+        lib.xtc_reduce_obs.restype = None
         _xtc_lib = lib
     except Exception:
         _xtc_lib = None
@@ -338,29 +343,21 @@ def read_xtc(fn: str, threads: int = 1):
 
 
 def _xtc_threads(lib, threads: int) -> int:
-    """0 = auto (all cores); 1 = sequential; N = exactly N workers.
-    Clamped to 1 when the loaded .so predates xtc_next_mt."""
-    if not getattr(lib, "_has_mt", False):
-        return 1
+    """0 = auto (all cores); 1 = sequential; N = exactly N workers."""
     if threads == 0:
         return os.cpu_count() or 1
     return max(1, threads)
 
 
 def _xtc_next_call(lib, handle, xyz, times, boxes, max_frames, n_threads):
-    """One chunk read through xtc_next_mt (or plain xtc_next on a stale
-    prebuilt .so); identical output and error codes either way."""
-    fn = lib.xtc_next_mt if getattr(lib, "_has_mt", False) else lib.xtc_next
-    args = (
+    """One chunk read through xtc_next_mt."""
+    return lib.xtc_next_mt(
         handle,
         xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         times.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         boxes.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        max_frames,
+        max_frames, n_threads,
     )
-    if fn is getattr(lib, "xtc_next_mt", None):
-        return fn(*args, n_threads)
-    return fn(*args)
 
 
 def iter_xtc(fn: str, chunk_frames: int, threads: int = 1):
@@ -442,10 +439,9 @@ def write_xtc(fn: str, xyz, times=None, boxes=None, precision: float = 1000.0,
 
 
 def xtc_obs_available() -> bool:
-    """True when the loaded codec has the fused decode->bond-observable
-    reader (xtc_next_obs; a prebuilt .so may predate it)."""
-    lib = _load_xtc()
-    return lib is not None and getattr(lib, "_has_obs", False)
+    """True when the codec with the fused decode->bond-observable reader
+    (xtc_next_obs) is available."""
+    return _load_xtc() is not None
 
 
 def iter_xtc_obs(fn: str, chunk_frames: int, idx_h, idx_x, A,
@@ -465,7 +461,7 @@ def iter_xtc_obs(fn: str, chunk_frames: int, idx_h, idx_x, A,
     accumulated in f64 and cast, like the host slab reduction).
     """
     lib = _load_xtc()
-    if lib is None or not getattr(lib, "_has_obs", False):
+    if lib is None:
         raise OSError("native fused XTC ingest unavailable")
     n_threads = _xtc_threads(lib, threads)
     natoms = ctypes.c_int()
@@ -530,7 +526,7 @@ def reduce_obs_mem(xyz, idx_h, idx_x, A, threads: int = 1):
     the native codec (or the obs entry point) is unavailable or the
     input is not an f32 (F, natoms, 3) block."""
     lib = _load_xtc()
-    if lib is None or not getattr(lib, "_has_obs", False):
+    if lib is None:
         return None
     xyz = np.asarray(xyz)
     if xyz.dtype != np.float32 or xyz.ndim != 3 or xyz.shape[2] != 3:

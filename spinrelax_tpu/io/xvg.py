@@ -168,9 +168,9 @@ def print_sxylist(fn: str, legend, x, ylist, header: Sequence[str] = ()):
     The ndim==3 rows are numpy's aligned `str(ndarray)` rendering (the
     reference prints str(row).strip('[]')); at production scale (10^4
     residues x 500 lags, a 158 MB _Ctext.dat) the per-row numpy
-    formatter takes 237 s — longer than the whole streamed compute —
-    so io.native.format_sxy renders the identical bytes in C (3.9 s,
-    60x; differential fuzz pin in test_native.py, A/B in docs/PERF.md)."""
+    formatter takes minutes — longer than the whole streamed compute —
+    so io.native.format_sxy renders the identical bytes in C (~60x
+    faster; differential fuzz pin in test_native.py)."""
     ylist = np.asarray(ylist)
     fast = None
     xarr = None

@@ -1,6 +1,10 @@
 #!/bin/bash
-# Build the native fast-IO library next to this script.
+# Build the native libraries ahead of first use, with the loader's own
+# compiler command and output paths (io/native.py: build/lib<name>-<key>.so).
 set -e
-cd "$(dirname "$0")"
-g++ -O3 -march=native -shared -fPIC fastio.cpp -o libfastio.so
-echo "built $(pwd)/libfastio.so"
+cd "$(dirname "$0")/../.."
+python -c "
+from spinrelax_tpu.io import native
+for name in ('fastio', 'xtc'):
+    print('built', native.ensure_built(name))
+"

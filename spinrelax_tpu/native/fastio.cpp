@@ -7,7 +7,7 @@
 // one core, and is exposed through a plain C ABI consumed via ctypes
 // (no pybind11 dependency).
 //
-// Build: see build.sh (g++ -O3 -shared -fPIC fastio.cpp -o libfastio.so)
+// Built at first use by io/native.py (or ahead of time by build.sh).
 
 #include <cerrno>
 #include <cstdio>

@@ -871,7 +871,7 @@ void xtc_close(void* handle) {
 // construction).  Decoding into a full (frames, natoms, 3) numpy chunk
 // that Python immediately reduces cost ~120 s of single-core bond_obs
 // plus the cache pressure of materialising the whole 12 GB northstar
-// trajectory through RAM (docs/PERF.md round 4).  Here each frame is
+// trajectory through RAM.  Here each frame is
 // decoded into a thread-local scratch and reduced in place — the full
 // coordinate block never exists.
 

@@ -38,7 +38,7 @@ def _ired_matrix(vecs):
     vecs : (nFrames, nRes, 3) unit vectors.
 
     Identity: (v_i . v_j)^2 = Q_i . Q_j with Q_i = vec(v_i v_i^T) (9
-    components), so the frame average collapses to ONE MXU matmul over
+    components), so the frame average collapses to ONE matmul over
     the (T*9) axis — O(T * nRes * 9) memory instead of materialising the
     (T, nRes, nRes) dot tensor (0.5 GB/block at 250 res x 1000 frames)."""
     T = vecs.shape[0]

@@ -1,6 +1,6 @@
 """Spectral-density J(omega) kernels — pure XLA, fully batched.
 
-TPU-native replacement for the reference's C numpy-ufunc ``npufunc.Jomega``
+Accelerator-native replacement for the reference's C numpy-ufunc ``npufunc.Jomega``
 (Jomega/Jomega.c) and the J-combination functions in
 ``spectral_densities.py:1863-2174``.  The x/(x^2+y^2) ufunc disappears into
 a fused elementwise expression inside a single einsum-style contraction;

@@ -168,8 +168,8 @@ def rates_from_a_moments_newapi(pair: NucleusPair, G, mu, cov, csa=None) -> Rate
         mean = jnp.sum(mu * r, axis=-1)
         var = jnp.einsum(
             "rj,rjk,rk->r", r, cov, r,
-            precision=jax.lax.Precision.HIGHEST,  # bf16 TPU default loses
-            # ~1e-3 on f32 contractions (CLAUDE.md precision rule)
+            precision=jax.lax.Precision.HIGHEST,  # a reduced-precision
+            # f32 default (TF32) loses ~1e-3 on f32 contractions
         )
         # _safe_sqrt: sqrt has a NaN *gradient* at 0 even though the
         # primal is fine — a zero-variance ensemble would NaN-poison the

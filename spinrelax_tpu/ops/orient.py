@@ -1,6 +1,6 @@
 """Trajectory orientation: batched Horn quaternion superposition.
 
-TPU-native replacement for the reference's *external* orientation
+Accelerator-native replacement for the reference's *external* orientation
 toolchain — the PLUMED2 QUATERNION colvar (computes the per-frame
 rigid-body orientation quaternion vs a reference structure;
 plumed-quat-template.dat + run-all.bash:359) and mdtraj's
@@ -163,8 +163,7 @@ def bond_obs_host(xyz, reference, idx_h, idx_x, fit_weights=None,
     file-fed chunk never needs to ship its full (nFrames, nAtoms, 3)
     coordinate block to the device.  This reduction is the whole
     host->device contract of the streamed C(t) stages: nAtoms/nBonds-fold
-    less transfer (~17x for the reference's ubiquitin system; measured
-    file-fed e2e in docs/PERF.md round 3).
+    less transfer (~17x for the reference's ubiquitin system).
 
     Returns (raw_diff (F, nBonds, 3), S (F, 3, 3)), both in the CANONICAL
     dtype of ``xyz`` — i.e. exactly what ``jnp.asarray(xyz)`` would use
@@ -206,8 +205,7 @@ def bond_obs_host(xyz, reference, idx_h, idx_x, fit_weights=None,
         # translation invariance is built into A.  Skipping the centring
         # pass avoids a second (slab, nAtoms, 3) f64 temporary; with the
         # default 8 MB slab the BLAS temporaries stay arena-resident
-        # (fresh large numpy buffers fault 10-32 us/page here,
-        # docs/PERF.md) — 242 -> 30 ms per 4000-frame ubiquitin group.
+        # (fresh large numpy buffers pay a page fault per page).
         S[lo : lo + slab] = A @ x
     return raw_diff, S
 

@@ -962,7 +962,7 @@ def cmd_check(argv):
     from ..io import native
 
     if native.available():
-        print("  [ok]   native fast-IO library (libfastio.so)")
+        print("  [ok]   native fast-IO library (libfastio)")
     else:
         print("  [--]   native fast-IO unavailable; falling back to numpy parsers")
     # Smoke-test one jitted kernel.

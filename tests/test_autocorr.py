@@ -62,49 +62,48 @@ def test_scan_variant_matches(rng):
     np.testing.assert_allclose(np.asarray(dct1), np.asarray(dct2), atol=1e-9)
 
 
-def test_pretiled_group_update_matches_ct_palmer(rng):
-    """tile_palmer_group + palmer_group_update_pretiled + pooled stats ==
-    ct_palmer, including a lane-padded batch (2 groups x 3 chunks x 20
-    residues: B=60 pads to 128) — the bench.py / north-star ingest path."""
-    import jax.numpy as jnp
-
-    vecs = random_unit_walk(rng, n_rep=6, n_frames=32, n_res=20)
-    n_deltas = 16
-    acc_s = jnp.zeros((n_deltas, 20), jnp.float64)
-    acc_s2 = jnp.zeros((n_deltas, 20), jnp.float64)
-    for off in range(0, 6, 3):
-        vt = ac.tile_palmer_group(jnp.asarray(vecs[off : off + 3]))
-        assert vt.shape == (1, 3, 32, 128)
-        acc_s, acc_s2 = ac.palmer_group_update_pretiled(
-            vt, acc_s, acc_s2, 3, 20
-        )
-    mean, dct = ac.palmer_pooled_stats(acc_s, acc_s2, 6.0)
+def test_group_update_matches_ct_palmer(rng):
+    """stream_accumulate's jitted group step (the bench.py / streamed
+    stage path) over (g, F, nRes, 3) groups + pooled stats == ct_palmer,
+    with groups of unequal size."""
+    vecs = random_unit_walk(rng, n_rep=7, n_frames=32, n_res=20)
+    groups = [vecs[:3], vecs[3:5], vecs[5:]]
+    acc_s, acc_s2, n = ac.stream_accumulate(iter(groups), 32)
+    assert n == 7
+    mean, dct = ac.palmer_pooled_stats(acc_s, acc_s2, float(n))
     ct1, dct1 = ac.ct_palmer(vecs)
-    np.testing.assert_allclose(np.asarray(mean), np.asarray(ct1), atol=1e-9)
-    np.testing.assert_allclose(np.asarray(dct), np.asarray(dct1), atol=1e-9)
+    np.testing.assert_allclose(np.asarray(mean).T, np.asarray(ct1),
+                               atol=1e-9)
+    np.testing.assert_allclose(np.asarray(dct).T, np.asarray(dct1),
+                               atol=1e-9)
 
 
-def test_tile_palmer_group_untile_roundtrip(rng):
-    """The tile layout is the exact inverse of the kernel's internal
-    (B, F, 3) -> (nTiles, 3, F, 128) mapping (flat (chunk, residue)
-    row-major over lanes)."""
+@pytest.mark.parametrize("form", ["xla", "fft"])
+@pytest.mark.parametrize("n_frames", [1000, 2000, 3000])
+def test_acf_forms_f32_vs_f64_direct(rng, form, n_frames):
+    """Both XLA forms of the lag sums, fed f32 DC-heavy bond vectors at
+    real chunk lengths, reproduce the f64 lag loop (ct_palmer_direct) to
+    2e-6 absolute on C(t) — the accuracy the chip smoke run demands."""
     import jax.numpy as jnp
 
-    vecs = random_unit_walk(rng, n_rep=2, n_frames=8, n_res=70)
-    vt = ac.tile_palmer_group(jnp.asarray(vecs))  # B=140 -> 2 tiles
-    assert vt.shape == (2, 3, 8, 128)
-    back = np.asarray(
-        jnp.transpose(vt, (0, 3, 2, 1)).reshape(256, 8, 3)[:140]
-    ).reshape(2, 70, 8, 3)
-    np.testing.assert_allclose(back, np.swapaxes(vecs, 1, 2), atol=0)
+    acf = {"xla": ac._acf_sums_xla, "fft": ac._acf_sums_fft}[form]
+    vecs = random_unit_walk(rng, n_rep=2, n_frames=n_frames, n_res=2,
+                            step=0.02)
+    n_deltas = n_frames // 2
+    v32 = jnp.asarray(np.swapaxes(vecs, 1, 2), jnp.float32)
+    s = np.asarray(acf(v32, n_deltas), np.float64)  # (rep, res, D)
+    n_vals = n_frames - np.arange(1, n_deltas + 1)
+    ct = np.mean(-0.5 + 1.5 * s / n_vals, axis=0).T
+    ref, _ = ac.ct_palmer_direct(jnp.asarray(vecs, jnp.float64))
+    np.testing.assert_allclose(ct, np.asarray(ref), atol=2e-6, rtol=0)
 
 
 def test_streamed_f32_error_bars_no_cancellation(rng):
     """Near-rigid vectors (per-chunk C(t) ~ 1, tiny spread): the f32
     STREAMED accumulators must reproduce the f64 two-pass error bars.
     With raw x/x^2 sums the f32 E[x^2]-E[x]^2 subtraction cancels at the
-    rounding floor of x^2 (same order as the variance itself — measured
-    ~4% dCt error on the TPU streamed path, docs/PERF.md round 3); the
+    rounding floor of x^2 (same order as the variance itself — a few
+    per cent of dCt on the f32 streamed path); the
     shifted-by-1 palmer_pooled_stats convention keeps the squares
     variance-sized, so this pins a <2% agreement that the unshifted
     convention cannot pass."""
@@ -269,3 +268,20 @@ def test_acf_fft_oracle_matches_production_paths():
         np.asarray(_acf_sums_xla(v, nd)),
         rtol=1e-9, atol=1e-9,
     )
+
+
+@pytest.mark.parametrize("n_frames,n_deltas", [(5, 4), (64, 32), (333, 100)])
+def test_matmul_dft_dc_split_is_exact(n_frames, n_deltas):
+    """The matmul-DFT correlates the CENTRED components and adds the
+    mean's share back in closed form from prefix sums; in float64 that
+    split is exact against the straight FFT form for DC-heavy vectors,
+    at odd lengths and up to the longest lag the closed form indexes."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n_frames)
+    v = np.array([0.3, -0.5, 0.8]) + 0.2 * rng.normal(size=(2, n_frames, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    v = jnp.asarray(v)
+    want = np.asarray(ac._acf_sums_fft(v, n_deltas))
+    got = np.asarray(ac._acf_sums_xla(v, n_deltas))
+    np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11)

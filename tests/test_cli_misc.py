@@ -250,23 +250,66 @@ def test_cli_center(tmp_path, rng):
 
 
 def test_compile_cache_helper(tmp_path, monkeypatch):
-    """enable_default points jax at the env-selected dir; the kill switch
-    wins; failures degrade silently (returns False, never raises)."""
+    """enable_default sets no directory of its own when
+    JAX_COMPILATION_CACHE_DIR is set, falls back to <checkout>/.jax_cache
+    otherwise, and the kill switch wins."""
     import jax
 
     from spinrelax_tpu.utils import compile_cache
 
     monkeypatch.delenv("SPINRELAX_NO_COMPILE_CACHE", raising=False)
-    monkeypatch.setenv("SPINRELAX_COMPILE_CACHE", str(tmp_path / "cc"))
+    monkeypatch.setattr(compile_cache, "_CHECKOUT", str(tmp_path))
     prev = jax.config.jax_compilation_cache_dir
     try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "x"))
+        assert compile_cache.cache_dir() == str(tmp_path / "x")
         assert compile_cache.enable_default()
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cc")
-        assert (tmp_path / "cc").is_dir()
+        assert jax.config.jax_compilation_cache_dir == prev
+        assert not (tmp_path / ".jax_cache").exists()
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        assert compile_cache.enable_default()
+        assert jax.config.jax_compilation_cache_dir == str(
+            tmp_path / ".jax_cache")
+        assert (tmp_path / ".jax_cache").is_dir()
         monkeypatch.setenv("SPINRELAX_NO_COMPILE_CACHE", "1")
+        assert compile_cache.cache_dir() is None
         assert not compile_cache.enable_default()
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
+
+
+_CACHE_PROBE = """
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+from spinrelax_tpu.utils import compile_cache
+compile_cache._CHECKOUT = sys.argv[1]
+assert compile_cache.enable_default()
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+print(float(jax.jit(lambda x: (x * 3.0).sum())(jax.numpy.ones(7))))
+"""
+
+
+@pytest.mark.parametrize("from_env", [True, False])
+def test_compile_cache_placement(tmp_path, from_env):
+    """Compiled entries land in JAX_COMPILATION_CACHE_DIR when it is set
+    and nowhere else; without it, under <checkout>/.jax_cache."""
+    checkout = tmp_path / "checkout"
+    checkout.mkdir()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SPINRELAX_NO_COMPILE_CACHE",
+                        "JAX_COMPILATION_CACHE_DIR")}
+    env["PYTHONPATH"] = REPO
+    if from_env:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "x")
+    out = subprocess.run(
+        [sys.executable, "-c", _CACHE_PROBE, str(checkout)], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    want = tmp_path / "x" if from_env else checkout / ".jax_cache"
+    other = checkout / ".jax_cache" if from_env else tmp_path / "x"
+    assert want.is_dir() and any(want.iterdir())
+    assert not other.exists()
 
 
 def test_s2_zeta_semantics(tmp_path, rng):

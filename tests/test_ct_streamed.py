@@ -183,23 +183,16 @@ def test_streamed_xtc_chunked(tmp_path, rng):
 
 def test_streamed_program_cache_reuse_and_impl_key():
     """Repeated stage calls with one static config must reuse ONE jitted
-    program (the compile-amortisation contract), while flipping the
-    trace-time routing global autocorr.ACF_IMPL must produce a DIFFERENT
-    program — a stale cache would silently keep executing the previously
-    traced backend through an A/B comparison."""
-    from spinrelax_tpu.ops import autocorr
+    program (the compile-amortisation contract), while a different
+    static config must get its own program — a stale cache would
+    silently keep executing the previously traced variant."""
     from spinrelax_tpu.pipeline import stages
 
     args = (100, True, True, True, True, "Histogram", 72, 36)
-    prev = autocorr.ACF_IMPL
-    try:
-        autocorr.ACF_IMPL = "xla"
-        p1 = stages._streamed_update_program(*args, autocorr.ACF_IMPL)
-        p2 = stages._streamed_update_program(*args, autocorr.ACF_IMPL)
-        autocorr.ACF_IMPL = "auto"
-        p3 = stages._streamed_update_program(*args, autocorr.ACF_IMPL)
-    finally:
-        autocorr.ACF_IMPL = prev
+    p1 = stages._streamed_update_program(*args)
+    p2 = stages._streamed_update_program(*args)
+    p3 = stages._streamed_update_program(100, True, False, True, True,
+                                         "Histogram", 72, 36)
     assert p1 is p2
     assert p3 is not p1
 

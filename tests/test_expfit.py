@@ -269,7 +269,7 @@ def test_retry_escalation_inert_on_clean_data(rng):
 
 @pytest.mark.slow
 def test_multistart_matches_reference_on_hard_mixes(tmp_path):
-    """TPU-native robustness: instead of replicating scipy TRF's
+    """Batch-parallel robustness: instead of replicating scipy TRF's
     Coleman-Li trust-region machinery, fit_multiexp(n_starts=8) solves 8
     deterministic starts per residue in one batch and keeps the best.
     On the hard-mix cohort this must reproduce the LIVE reference's

@@ -1,6 +1,6 @@
 """Unit tests for the unrolled small-SPD Cholesky kernels behind the LM
 solver (fit/lm.py) — the replacements for batched ``jnp.linalg.solve`` /
-``pinv`` that scalar-loop on TPU (docs/PERF.md round 3).
+``pinv``, whose batched tiny-system lowerings can scalar-loop.
 """
 
 import numpy as np
@@ -182,7 +182,7 @@ def test_convergence_gates_preserve_solution(rng):
                                        (4, True), (4, False)])
 def test_multiexp_analytic_jacobian_matches_ad(rng, K, s2_free):
     """The closed-form residual Jacobian that replaced the in-loop jacfwd
-    (docs/PERF.md round 3) must BE the AD Jacobian — same residual, same
+    must BE the AD Jacobian — same residual, same
     derivative — for every rung shape the DoF ladder uses."""
     T = 120
     dt = jnp.asarray(np.arange(1.0, T + 1.0))

@@ -206,3 +206,63 @@ class TestFormatSxy:
         with open(fn) as fh:
             body = fh.read()
         assert "X0.123457 X0.5" in body
+
+
+def _fake_native_dir(tmp_path, monkeypatch, body):
+    d = tmp_path / "native"
+    d.mkdir(exist_ok=True)
+    (d / "m.cpp").write_text(body)
+    monkeypatch.setattr(native, "_NATIVE_DIR", str(d))
+    monkeypatch.setattr(native, "_BUILD_DIR", str(d / "build"))
+    monkeypatch.setattr(native, "_BUILT", {})
+    return d
+
+
+def test_native_library_keyed_on_source(tmp_path, monkeypatch):
+    """A library is built once per source content into build/, and an
+    edited source gets a NEW path — the build of the old source is never
+    the one returned (and so never loaded)."""
+    import ctypes
+
+    _fake_native_dir(tmp_path, monkeypatch,
+                     'extern "C" int forty() { return 40; }\n')
+    p1 = native.ensure_built("m")
+    assert os.path.basename(p1).startswith("libm-")
+    assert native._BUILT["m"]["built_now"]
+    assert native.ensure_built("m") == p1
+    assert not native._BUILT["m"]["built_now"]
+    assert ctypes.CDLL(p1).forty() == 40
+    (tmp_path / "native" / "m.cpp").write_text(
+        'extern "C" int forty() { return 41; }\n')
+    p2 = native.ensure_built("m")
+    assert p2 != p1 and os.path.exists(p1)
+    assert native._BUILT["m"]["built_now"]
+    assert ctypes.CDLL(p2).forty() == 41
+
+
+def test_native_key_covers_compiler_command(tmp_path, monkeypatch):
+    """Changing the compiler command changes the key: a library built
+    with other flags is never reused."""
+    _fake_native_dir(tmp_path, monkeypatch, "int x;\n")
+    p1 = native.library_path("m")
+    monkeypatch.setattr(native, "CXX_COMMAND",
+                        native.CXX_COMMAND + ("-DOTHER",))
+    assert native.library_path("m") != p1
+
+
+def test_native_library_report_and_build_script():
+    """The loaded libraries are reported with their keyed paths, and
+    native/build.sh builds exactly the paths the loader loads."""
+    import subprocess
+
+    assert native.available() and native.xtc_available()
+    rep = native.library_report()
+    for name in ("fastio", "xtc"):
+        assert rep[name]["loaded"]
+        assert rep[name]["path"] == os.path.relpath(
+            native.library_path(name), native._NATIVE_DIR)
+    out = subprocess.run(
+        ["bash", os.path.join(native._NATIVE_DIR, "build.sh")],
+        capture_output=True, text=True, timeout=300, check=True)
+    for name in ("fastio", "xtc"):
+        assert native.library_path(name) in out.stdout

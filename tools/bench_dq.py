@@ -46,47 +46,7 @@ REF = "/root/reference"
 SHIM = os.path.join(REPO, "tools", "refshim")
 
 
-def _qmult_np(a, b):
-    w1, x1, y1, z1 = np.moveaxis(a, -1, 0)
-    w2, x2, y2, z2 = np.moveaxis(b, -1, 0)
-    return np.stack(
-        [
-            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
-            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-            w1 * y2 + y1 * w2 + z1 * x2 - x1 * z2,
-            w1 * z2 + z1 * w2 + x1 * y2 - y1 * x2,
-        ],
-        axis=-1,
-    )
-
-
-def simulate_quats(n_frames, d_body, dt, seed):
-    """Vectorised rotational Brownian motion: per-step rotation vectors
-    ~ N(0, 2 D_i dt) in the body frame, composed by a Hillis-Steele
-    cumulative Hamilton product (O(F log F), exact for the
-    non-commutative case with the earlier block as the LEFT factor)."""
-    rng = np.random.default_rng(seed)
-    w = rng.normal(scale=np.sqrt(2.0 * np.asarray(d_body) * dt),
-                   size=(n_frames, 3))
-    th = np.linalg.norm(w, axis=-1, keepdims=True)
-    ax = np.where(th > 0, w / np.maximum(th, 1e-300), [1.0, 0.0, 0.0])
-    dq = np.concatenate([np.cos(th / 2), ax * np.sin(th / 2)], axis=-1)
-    dq[0] = [1.0, 0, 0, 0]
-    q = dq.copy()
-    step = 1
-    while step < n_frames:
-        q[step:] = _qmult_np(q[:-step], q[step:])
-        q /= np.linalg.norm(q, axis=-1, keepdims=True)
-        step *= 2
-    return q
-
-
-def write_colvar_file(fn, q, dt):
-    from spinrelax_tpu.io.colvar import write_colvar
-
-    t = np.arange(q.shape[0], dtype=np.float64) * dt
-    write_colvar(fn, ["time", "q.w", "q.x", "q.y", "q.z"],
-                 np.concatenate([t[:, None], q], axis=1).T)
+from spinrelax_tpu.utils.synthetic import simulate_quats, write_colvar_file  # noqa: E402,E501
 
 
 def run_ours(colvar, out_prefix, grid, n_chunks):
@@ -147,8 +107,8 @@ def main():
     print(f"  colvar write: {time.perf_counter() - t0:.1f} s "
           f"({os.path.getsize(colvar) / 1e6:.0f} MB, not timed)")
 
-    ours_cold = run_ours(colvar, os.path.join(work, "tpu"), grid, a.chunks)
-    ours_warm = run_ours(colvar, os.path.join(work, "tpu2"), grid, a.chunks)
+    ours_cold = run_ours(colvar, os.path.join(work, "ours"), grid, a.chunks)
+    ours_warm = run_ours(colvar, os.path.join(work, "ours2"), grid, a.chunks)
     n_lags = len(np.arange(max(grid[2], grid[0]), grid[1] + grid[2] / 2,
                            grid[2]))
     result = {

@@ -1,10 +1,10 @@
 """North-star benchmark (BASELINE.json): 10^4 bond vectors x 10^6 frames,
 C(t) + multi-exponential fit + R1/R2/NOE end-to-end, target < 1 min on one
-TPU v5e.
+accelerator (BASELINE.json).
 
 The frame axis streams through the device in groups of Palmer chunks with
 running (sum, sum-of-squares) accumulators — the full trajectory never
-exists in HBM.  Synthetic vectors are generated on device per group
+exists in device memory.  Synthetic vectors are generated on device per group
 (host->device streaming is a separate I/O concern; this measures the
 compute path, matching how BASELINE.md defines the metric).
 
@@ -33,13 +33,7 @@ def main():
         help="shard over an N-device ('rep','res') mesh via the production "
         "sharded stream (parallel/streamed.py); 0 = single device",
     )
-    p.add_argument("--impl", default="auto", choices=["auto", "xla", "pallas"],
-                   help="force the ACF backend (autocorr.ACF_IMPL)")
     a = p.parse_args()
-
-    from spinrelax_tpu.ops import autocorr as _ac
-
-    _ac.ACF_IMPL = a.impl
 
     import jax
     import jax.numpy as jnp
@@ -59,41 +53,14 @@ def main():
 
     n_vals = F - jnp.arange(1, D + 1, dtype=jnp.float32)
 
-    from spinrelax_tpu.ops.pallas_acf import supports
-
-    use_pretiled = (
-        a.impl != "xla"
-        and jax.default_backend() == "tpu"
-        and supports(F, D)
-    )
-    if use_pretiled:
-        # Generate straight into the kernel's native (nTiles, 3, F, 128)
-        # tile layout (a loader can DMA host data into this layout just
-        # as cheaply — it is only an index reordering at ingest), so no
-        # XLA transpose/pad pre-pass runs per group.  Lag-leading
-        # accumulators; one tiny transpose in finish().
-        B = G * N
-        n_tiles = -(-B // 128)
-
-        from spinrelax_tpu.ops.autocorr import palmer_group_update_pretiled
-
-        @jax.jit
-        def group_step(key, acc_s, acc_s2):
-            v = jax.random.normal(
-                key, (n_tiles, 3, F, 128), dtype=jnp.float32
-            )
-            v = v / jnp.linalg.norm(v, axis=1, keepdims=True)
-            return palmer_group_update_pretiled(v, acc_s, acc_s2, G, N)
-    else:
-
-        @jax.jit
-        def group_step(key, acc_s, acc_s2):
-            v = jax.random.normal(key, (G, N, F, 3), dtype=jnp.float32)
-            v = v / jnp.linalg.norm(v, axis=-1, keepdims=True)
-            s = _acf_sums(v, D)  # (G, N, D)
-            # palmer_pooled_stats convention: e = per - 1, e**2.
-            e = -1.5 + 1.5 * s / n_vals
-            return acc_s + jnp.sum(e, axis=0), acc_s2 + jnp.sum(e**2, axis=0)
+    @jax.jit
+    def group_step(key, acc_s, acc_s2):
+        v = jax.random.normal(key, (G, N, F, 3), dtype=jnp.float32)
+        v = v / jnp.linalg.norm(v, axis=-1, keepdims=True)
+        s = _acf_sums(v, D)  # (G, N, D)
+        # palmer_pooled_stats convention: e = per - 1, e**2.
+        e = -1.5 + 1.5 * s / n_vals
+        return acc_s + jnp.sum(e, axis=0), acc_s2 + jnp.sum(e**2, axis=0)
 
     pair = NucleusPair(time_unit="ps")
     omega = jnp.asarray(pair.omega5(), dtype=jnp.float32)
@@ -102,8 +69,6 @@ def main():
 
     @jax.jit
     def finish(acc_s, acc_s2):
-        if use_pretiled:  # lag-leading accumulators: one tiny transpose
-            acc_s, acc_s2 = acc_s.T, acc_s2.T
         from spinrelax_tpu.ops.autocorr import palmer_pooled_stats
 
         mean, dCt = palmer_pooled_stats(acc_s, acc_s2, float(R))
@@ -119,18 +84,16 @@ def main():
 
     # Warm-up compile of both programs on tiny state.
     key0 = jax.random.PRNGKey(int(time.time()) & 0x7FFFFFFF)
-    acc_shape = (D, N) if use_pretiled else (N, D)
-    acc_s = jnp.zeros(acc_shape, jnp.float32)
-    acc_s2 = jnp.zeros(acc_shape, jnp.float32)
+    acc_s = jnp.zeros((N, D), jnp.float32)
+    acc_s2 = jnp.zeros((N, D), jnp.float32)
     w1, w2 = group_step(key0, acc_s, acc_s2)
     out = finish(w1, w2)
     float(out[3][0])  # force completion
 
     keys = jax.random.split(key0, R // G)
     t0 = time.perf_counter()
-    acc_shape = (D, N) if use_pretiled else (N, D)
-    acc_s = jnp.zeros(acc_shape, jnp.float32)
-    acc_s2 = jnp.zeros(acc_shape, jnp.float32)
+    acc_s = jnp.zeros((N, D), jnp.float32)
+    acc_s2 = jnp.zeros((N, D), jnp.float32)
     for k in keys:
         acc_s, acc_s2 = group_step(k, acc_s, acc_s2)
     Ct, dCt, S2, R1, R2, NOE = finish(acc_s, acc_s2)

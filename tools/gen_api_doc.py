@@ -23,7 +23,6 @@ MODULES = [
     "spinrelax_tpu.models.diffusion",
     "spinrelax_tpu.models.experiments",
     "spinrelax_tpu.ops.autocorr",
-    "spinrelax_tpu.ops.pallas_acf",
     "spinrelax_tpu.ops.jomega",
     "spinrelax_tpu.ops.relaxation",
     "spinrelax_tpu.ops.observables",

@@ -2,7 +2,7 @@
 (/root/reference) on synthetic inputs.
 
 The goldens stored in tests/golden/ are *outputs* of the reference
-implementation — used to verify that the TPU-native rebuild matches the
+implementation — used to verify that this rebuild matches the
 reference numerics to <=1e-6 (BASELINE.md parity target).  The reference
 is executed with small shims (tools/refshim) standing in for its compiled
 npufunc and the pip transforms3d dependency.
